@@ -1,9 +1,8 @@
-"""Regression-gate behavior (round-3 VERDICT weak #2, round-4 revision).
+"""Regression-gate behavior of benchmarks/bench_render.py.
 
-The gate must (a) trip on a genuine 20% slowdown, (b) NOT trip on the
-measured ±35% one-sided relay noise, and (c) NOT false-trip on c5's
-documented BIMODAL rep walls (9.7/12/15.6 s modes through the relay) —
-the round-3 failure mode that had to be cleared by hand. Statistic:
+The gate must (a) trip on a genuine 20% slowdown, (b) NOT trip on
+one-sided run-to-run noise, and (c) NOT false-trip on BIMODAL rep walls
+(a synthetic three-mode distribution below). Statistic:
 best-of-reps vs median of recent bests, with one automatic solo retry
 (run_gate_with_retry). Pure-host logic — no device work.
 """
@@ -19,7 +18,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "benchmarks"))
 from bench_render import gate_failures, run_gate_with_retry  # noqa: E402
 
 
-def rec(name, ts, best, backend="tpu"):
+def rec(name, ts, best, backend="gpu"):
     return {"name": name, "backend": backend, "ts": ts,
             "mrays_per_s": best, "mrays_median": best * 0.87}
 
@@ -47,13 +46,13 @@ def test_first_record_never_gates():
 
 def test_backend_isolation():
     history = [rec("c3-mesh", t, 50.0, backend="cpu") for t in range(5)]
-    now = rec("c3-mesh", 10, 5.6)  # tpu record, cpu history is faster
+    now = rec("c3-mesh", 10, 5.6)  # gpu record, cpu history is faster
     assert gate_failures([now], history + [now]) == []
 
 
-# --- the c5 bimodal distribution, synthesized from the round-3 numbers:
-# rep walls cluster at 9.7 / 12 / 15.6 s (device speed 3.92 Mrays/s at
-# the 9.7 s mode). Rays fixed, so mrays ∝ 1/wall.
+# --- a synthetic multimodal c5 distribution: rep walls cluster at
+# 9.7 / 12 / 15.6 s (3.92 Mrays/s at the 9.7 s mode). Rays fixed, so
+# mrays ∝ 1/wall.
 
 _C5_RAYS_OVER_1E6 = 38.0  # → 3.92 Mrays/s at 9.7 s
 
@@ -69,7 +68,7 @@ def _c5_record(rng, ts, reps, slowdown=1.0, retry=False):
 
 
 def test_bimodal_c5_gate_statistics():
-    """Over many synthetic sweeps drawn from the measured bimodal wall
+    """Over many synthetic sweeps drawn from the multimodal wall
     distribution, the gate + one solo retry must (a) essentially never
     false-trip on healthy runs, (b) still trip a real 20% regression."""
     rng = random.Random(1234)

@@ -180,7 +180,7 @@ def test_presplit_traversal_matches_plain(micro_mesh):
     sc_plain, _ = scene_mod.mesh_scene(1.0, v, f, use_bvh=True)
 
     # threshold=0 forces the budget to be spent even where no ref clears
-    # the 2x-median area gate (probe_walk.py's forced mode) — winner
+    # the 2x-median area gate (the forced mode) — winner
     # exactness must hold for splits of uniform refs too
     old = (bvh.PRESPLIT_ALPHA, bvh.PRESPLIT_THRESHOLD)
     bvh.PRESPLIT_ALPHA = 1.0

@@ -65,7 +65,7 @@ def test_resume_is_exact(sp, tmp_path):
 
 
 def test_sharded_checkpoint_resume_exact(sp, tmp_path):
-    """Checkpointing composes with tile sharding (VERDICT round-1 #6):
+    """Checkpointing composes with tile sharding:
     interrupt a fake-mesh sharded render after K spp, resume, and the image
     is bit-identical to the uninterrupted sharded run with the same chunk
     cadence."""

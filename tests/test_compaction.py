@@ -117,8 +117,8 @@ def test_wavefront_ragged_block_matches_mega():
 
 
 def test_stage_caps_matches_round2_ladder():
-    """stage_caps() must generate exactly the round-2 relative ladders it
-    replaced (re-auditioned and kept, benchmarks/probe_stagecaps.py):
+    """stage_caps() must generate exactly the relative ladders it
+    replaced:
     traversal p//2..p//64 floored at 8, bounce n//2..n//16 floored at 4."""
     from tpurt.kernels.traverse import stage_caps
 

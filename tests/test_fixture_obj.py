@@ -97,8 +97,7 @@ def test_obj_write_roundtrip_exact(tmp_path):
     """io.obj.write_mesh -> load_mesh is bit-exact for f64 meshes (the
     %.17g contract) and the scenes built from both mesh copies are
     byte-identical array for array — the equivalence the c3 bench
-    asserts at contract scale (bench_render.build_scene_obj_checked,
-    round-4 VERDICT item 8)."""
+    asserts at contract scale (bench_render.build_scene_obj_checked)."""
     import sys
     from pathlib import Path
 

@@ -79,8 +79,8 @@ def test_native_build_arrays_bit_identical():
 
         # force the NumPy fallback for the second build: TPURT_NATIVE=0
         # is only consulted at load time, so the cached lib must be
-        # dropped BOTH ways (the round-3 ADVICE found the old _tried/_lib
-        # poke left the native path live and made this test vacuous)
+        # dropped BOTH ways (poking only a cached flag would leave the
+        # native path live and make this test vacuous)
         os.environ["TPURT_NATIVE"] = "0"
         native._libs.clear()
         try:

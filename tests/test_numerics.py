@@ -1,5 +1,5 @@
 """Numerical-hygiene checks (SURVEY.md §5 "Race detection / sanitizers"):
-the TPU analog of running the reference under sanitizers — jax_debug_nans
+the JAX analog of running the reference under sanitizers — jax_debug_nans
 over a render that exercises every material, plus the dielectric edge
 cases that classically produce fireflies/NaNs (SURVEY.md §7 hard part 5)."""
 

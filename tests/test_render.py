@@ -6,11 +6,9 @@ allowed to make: pixel-block size, sample-chunk size, ragged tail
 chunks, and sample-span composition (the checkpoint/resume unit). These
 tests pin that invariance on the plain frame loop.
 
-History: this file used to pin the bit-exactness of two refuted
-regrouping engines (cross-batch tail coalescing and sample-major
-packets). Both were evicted from the production path in round 5
-(round-4 VERDICT item 7) — probe_tailcoalesce.py / probe_spmajor.py
-keep the refutation records, and the engines live at round-4 commit
+History: this file used to pin the bit-exactness of two regrouping
+engines (cross-batch tail coalescing and sample-major packets) that lost
+on the previous accelerator and were deleted; they live at commit
 69c49fb if ever needed again.
 """
 

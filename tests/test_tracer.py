@@ -116,8 +116,7 @@ def test_nan_free(cornell_scene):
 def test_effective_ray_batch_scopes_the_512k_default():
     """The 512k batch is a BVH-traversal optimization (per-batch link
     amortization); brute-force bounce paths cap at BRUTE_RAY_BATCH and
-    primary mode keeps the full batch (both measured —
-    benchmarks/probe_batchscale.py SCOPE note)."""
+    primary mode keeps the full batch."""
     from tpurt import config, render
 
     cfg_brute = config.RenderConfig(width=8, height=8, spp=1,
@@ -142,8 +141,7 @@ def test_effective_ray_batch_scopes_the_512k_default():
 
 
 def test_bounce_stage_caps_override_is_image_invariant(sp_scene):
-    """The BOUNCE_STAGE_CAPS probe hook (benchmarks/probe_bladder.py)
-    must be a pure reschedule: any ladder shape produces bit-identical
+    """The BOUNCE_STAGE_CAPS override must be a pure reschedule: any ladder shape produces bit-identical
     radiance (stage compaction only changes WHERE rows live, never
     which rays bounce or in what RNG order)."""
     from tpurt import trace

@@ -2,7 +2,8 @@
 
 The reference builds a pointer-based node tree and traverses it with a
 recursive descent + stack per ray (SURVEY.md §2 "BVH build"/"BVH traversal").
-On TPU a per-lane stack means scattered per-lane memory updates, so instead
+On a vector machine a per-lane stack means scattered per-lane memory
+updates, so instead
 the tree is flattened in depth-first order with *skip links* (escape
 indices): traversal keeps a single int32 node cursor per ray and never
 pushes/pops (SURVEY.md §7 M2 "rope/escape-index truly stackless").
@@ -241,10 +242,9 @@ def build(v0: np.ndarray, v1: np.ndarray, v2: np.ndarray, mat: np.ndarray,
     )
 
 
-# --- triangle pre-splitting (SBVH-style spatial splits, round-4 VERDICT
-# item 2) -------------------------------------------------------------------
+# --- triangle pre-splitting (SBVH-style spatial splits) --------------------
 # The straggler packet's WALK (inner nodes whose box the ray union hits) is
-# the one traversal quantity every round-3 reschedule conserved. Spatial
+# the one traversal quantity every round reschedule conserved. Spatial
 # splits attack it at the source: a triangle whose AABB is large relative
 # to its neighbours gets REFERENCE-DUPLICATED — several (tri_id, box)
 # references with clipped, tighter boxes — before the SAH recursion, which
@@ -255,12 +255,11 @@ def build(v0: np.ndarray, v1: np.ndarray, v2: np.ndarray, mat: np.ndarray,
 # `t < t_best` winner test keeps the first instance.
 #
 # PRESPLIT_ALPHA is the reference budget as a fraction of the triangle
-# count (0 = off). Flipped per-build via build_packet(presplit=...) by the
-# probes; the production default is set from probe_walk.py's measurement.
+# count (0 = off, the production default). Flipped per-build via
+# build_packet(presplit=...).
 PRESPLIT_ALPHA = 0.0
 # Split-candidate gate (box SA > PRESPLIT_THRESHOLD * median); see
-# presplit_refs. probe_walk.py sets 0.0 to force the budget spent on
-# uniform meshes.
+# presplit_refs. 0.0 forces the budget spent on uniform meshes.
 PRESPLIT_THRESHOLD = 2.0
 
 
@@ -301,8 +300,7 @@ def presplit_refs(v0, v1, v2, alpha: float, threshold: float = 2.0):
 
     threshold: only references with box SA > threshold * median are
     split candidates (2.0 = the production guard: uniform meshes skip
-    the pass entirely). probe_walk.py forces threshold=0 to measure
-    whether splitting UNIFORM refs can move the straggler walk at all —
+    the pass entirely). threshold=0 forces splitting UNIFORM refs too —
     the blob's max/median box SA is 1.66, so at the default threshold
     the pass is (correctly) a no-op there."""
     v0 = np.asarray(v0, np.float32)
@@ -370,26 +368,21 @@ def presplit_refs(v0, v1, v2, alpha: float, threshold: float = 2.0):
 
 
 PACKET_LEAF_N = 32
-# Packet leaf size history: 32 tuned in round 1 (drain-1 rounds),
-# re-confirmed downward at 131k in round 2 (probe_leafsize: {32,16,8}),
-# and re-audited in BOTH directions at 512k strided in round 3
-# (probe_leafup.py): 24 wins 5% on ISOLATED bounce-1 (dense volume is
-# ~25-40% of wall there) and 48 wins 6% on isolated primaries, but the
-# FULL megakernel measured SLOWER at 24 — the deep-bounce tail is
-# round/link-bound and pays 24's +7% round count without its volume
-# saving. 32 stands end-to-end.
+# Triangles per packet leaf row. Chosen end to end on the previous
+# accelerator (smaller leaves won isolated bounces but lost on the full
+# megakernel: the deep-bounce tail is round-bound and pays their extra
+# rounds without the volume saving); not yet measured on the H100.
 LEAF_F = 12  # f32 slots per triangle in a packed leaf row
 
-# bf16-packed node rows (round 5, benchmarks/probe_bf16.py): box coords
-# outward-rounded to bf16 and packed two-per-u32 slot, halving the
-# per-adv-step column count (the slice_reduce census term). The slab
+# bf16-packed node rows: box coords outward-rounded to bf16 and packed
+# two-per-u32 slot, halving the per-adv-step column count. The slab
 # ARITHMETIC stays f32 — bf16->f32 expansion is exact, and a box only
 # ever gets LOOSER (lo rounds toward -inf, hi toward +inf), so the cull
 # stays conservative and images stay byte-identical (winners can flip
 # only on exact f32 t-ties via drain order, the octant-adoption
 # boundary). Scene build packs the emitted f32 tables when this is set;
-# kernels/traverse.py branches on the array dtype. Default decided by
-# the probe's end-to-end adoption run (see probe_bf16.py RESULTS).
+# kernels/traverse.py branches on the array dtype. Off: it lost end to
+# end on the previous accelerator to its extra node visits.
 PK_BF16_PACK = False
 
 
@@ -415,7 +408,7 @@ def pack_nodes_bf16(nodes: np.ndarray) -> np.ndarray:
     axes xyz then child R; lo rounded toward -inf, hi toward +inf.
     Slots 6-8: metaL/metaR/skip bit-unchanged. Slots 9-15 zero. Row
     width stays 16 so gathers are shape-identical to the f32 table and
-    only the extracted column count changes (probe_bf16.py C)."""
+    only the extracted column count changes."""
     flat = nodes.reshape(-1, nodes.shape[-1])
     out = np.zeros_like(flat, np.uint32)
     for child, off in ((0, 0), (1, 6)):
@@ -430,12 +423,13 @@ def pack_nodes_bf16(nodes: np.ndarray) -> np.ndarray:
 class PacketBVH(NamedTuple):
     """Child-in-parent (CIP) gather-minimal layout for packet traversal.
 
-    Measured on this TPU, an XLA gather costs ~3-8 ns per *row* nearly
-    independent of row width, so the layout packs BOTH children's boxes
+    Designed for a machine where an XLA gather costs a fixed few ns per
+    *row* nearly independent of row width: the layout packs BOTH
+    children's boxes
     into the parent's row — one gather per visit tests two subtrees, a
     missed child's subtree is never entered, and leaf children are
     enqueued for intersection without any node visit at all. Compared to
-    the round-1 one-box-per-row skip-link layout (which visited every
+    a one-box-per-row skip-link layout (which visits every
     node whose parent hit), CIP visits only nodes whose OWN box hit,
     roughly halving both the gather count and the serial latency chain.
 
@@ -450,25 +444,18 @@ class PacketBVH(NamedTuple):
       leaves: (L, LEAF_F * PACKET_LEAF_N) f32 — per leaf row, PACKET_LEAF_N
         triangles COMPONENT-MAJOR: [all v0x, all v0y, ..., all mat_bits,
         all gid_bits, pad], padded with degenerate triangles. One row
-        gather yields the whole leaf; component-major means consumers
-        (XLA leaf phase and the Pallas kernel, kernels/leaf.py) slice 2D
-        (P, LN) component blocks with no reshape — Mosaic cannot lower a
-        (P, LN*F)->(P, LN, F) shape cast, and XLA gets contiguous slices.
+        gather yields the whole leaf; component-major means the leaf
+        phase (kernels/traverse.leaf_hits) slices 2D (P, LN) component
+        blocks with no reshape, as contiguous slices.
       cut: (8, 2) int32 — 8 disjoint [start, end) row spans covering all
         inner rows, balanced by row count, for the multi-cursor tail
         (kernels/traverse.py): K independent gather chains overlap,
         dividing the latency-bound round count by ~K.
 
-    The round-1 8-octant direction-ordered layouts were DELETED: measured
-    (round 1, VERDICT weak #7) they lose without a per-bounce ray resort.
-    The resort itself was re-measured in round 2 with trustworthy in-jit
-    timing (benchmarks/probe_resort.py): the permute is cheap (~0.9 ms at
-    131k rays, not the ~15 ms round-1 estimate) but SORTING MAKES
-    TRAVERSAL SLOWER — bounce-1 packet traversal 11.6 ms sorted vs
-    10.2 ms as-is (320 vs 236 rounds): pixel-tile order already groups
-    rays by origin, and the coherence-key sort trades that for direction
-    grouping, WIDENING the per-packet node-set union. Resort stays off;
-    the 8x node storage stays deleted.
+    Re-sorting rays by direction each bounce (trace.ray_coherence_key)
+    lost on the previous accelerator: pixel-tile order already groups
+    rays by origin, and a direction sort trades that for direction
+    grouping, WIDENING the per-packet node-set union. Resort stays off.
     """
 
     nodes: np.ndarray    # (Mi, 16) f32
@@ -507,7 +494,7 @@ def build_packet(v0, v1, v2, mat, leaf_n: int = PACKET_LEAF_N,
     see presplit_refs): the SAH recursion then partitions clipped-box
     REFERENCES and leaves store the deduped original triangles. With
     presplit = 0 (the default via PRESPLIT_ALPHA) every step below is
-    bit-identical to the round-3 builder."""
+    bit-identical to the builder without the pre-pass."""
     v0 = np.asarray(v0, np.float32)
     v1 = np.asarray(v1, np.float32)
     v2 = np.asarray(v2, np.float32)
@@ -573,8 +560,7 @@ def build_packet(v0, v1, v2, mat, leaf_n: int = PACKET_LEAF_N,
     # on axis a, the L slots hold the LOW-coordinate child unless bit a
     # of swap_bits is set (ray direction negative along a => the high
     # side is nearer), so left-first descent is front-to-back for that
-    # octant. swap_bits=0 is the production table (bit-identical to the
-    # round-3 emission).
+    # octant. swap_bits=0 is the unswapped table (the plain DFS emission).
     def _emit_table(swap_bits: int):
         row_lo_l: list = []
         row_hi_l: list = []
@@ -704,15 +690,13 @@ WIDE_F = 64  # f32 slots per wide node row
 
 
 class PacketBVH8(NamedTuple):
-    """Wide-fanout (8-ary) child-in-parent layout (round-3 VERDICT item 1).
+    """Wide-fanout (8-ary) child-in-parent layout.
 
-    The binary CIP layout (PacketBVH) won round 2 by testing TWO subtrees
-    per row gather; the measured gather cost (~1.3-8 ns/row nearly
-    independent of row width, kernels/traverse.py docstring) says a
-    64-f32 row testing EIGHT subtrees costs the same gather — cutting
-    tree depth, and with it the serial gather->slab->select chain the
-    round-cost wall analysis blames (BASELINE.md "Why c3 is not at 20+"),
-    by ~3x vs binary.
+    The binary CIP layout (PacketBVH) tests TWO subtrees per row gather;
+    where a gather costs the same whatever the row width, a 64-f32 row
+    testing EIGHT subtrees costs the same gather — cutting tree depth,
+    and with it the serial gather->slab->select chain, by ~3x vs binary.
+    Off by default (kernels/traverse.WIDE_ENABLE).
 
       nodes: (Mw, 64) f32 — one row per wide node, DFS order,
         COMPONENT-MAJOR boxes so the slab math slices contiguous blocks:
@@ -764,11 +748,10 @@ def build_packet8(v0, v1, v2, mat,
                   fanout: int = WIDE_FANOUT) -> PacketBVH8:
     """Build the wide-fanout CIP layout (binned-SAH topology collapsed).
 
-    fanout: children per wide node (8 = the round-3 layout; 4 = the
-    round-4 "grandchildren" point: each visit tests the four boxes TWO
-    binary levels down — the same box-test volume as two binary steps
-    with HALF the serial gather->reduce->select links; see
-    benchmarks/probe_fanout4.py). Row width is 8*fanout f32 slots:
+    fanout: children per wide node (8; or 4: each visit tests the four
+    boxes TWO binary levels down — the same box-test volume as two
+    binary steps with HALF the serial gather->reduce->select links).
+    Row width is 8*fanout f32 slots:
     boxes component-major in 6*fanout, metas at 6F..7F, skip at 7F,
     leaf_base at 7F+1, rest pad. The traversal infers fanout from the
     row width (kernels/traverse.py)."""

@@ -96,6 +96,9 @@ def main(argv=None) -> int:
     else:
         import jax
 
+        from . import compile_cache
+        compile_cache.enable()
+
         profile = None
         if args.profile_dir:
             jax.profiler.start_trace(args.profile_dir)
@@ -116,6 +119,7 @@ def main(argv=None) -> int:
         if profile:
             jax.profiler.stop_trace()
         stats["backend"] = jax.default_backend()
+        stats["device_kind"] = jax.devices()[0].device_kind
 
     stats["config"] = {k: getattr(cfg, k) for k in
                        ("width", "height", "spp", "max_depth", "seed",
@@ -127,7 +131,8 @@ def main(argv=None) -> int:
         rgb8 = film_mod.tonemap(film)
         if args.out.lower().endswith(".png"):
             # same tonemapped bytes as the PPM path, PNG-encoded (PIL is
-            # in the image; PPM stays the parity/golden format)
+            # optional and imported only here; PPM stays the parity/golden
+            # format)
             from PIL import Image
             Image.fromarray(rgb8).save(args.out)
         else:

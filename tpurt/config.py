@@ -26,15 +26,13 @@ class RenderConfig:
     mode: str = "mega"                 # primary | mega | wavefront | persist
     rr_start: Optional[int] = None     # Russian roulette from this bounce (A.8)
     spp_chunk: int = 0                 # 0 = auto (by ray-batch budget)
-    # Max rays per device batch. Round 3 re-measured the scaling under
-    # the final staged design (benchmarks/probe_batchscale.py): the
-    # traversal round's serial-link term (~5-6 ms/batch) is per-ROUND,
-    # nearly independent of packet count, so bigger batches amortize it
-    # — bounce-1 ns/ray falls 79.3 (128k) -> 46.9 (512k), then ticks
-    # back up at 1M (52.0: the compaction tail's sum_pp jumps 2.6x).
-    # 512k is the measured sweet spot on v5e FOR BVH TRAVERSAL; scenes
-    # with no BVH have no link term to amortize and measured 29% slower
-    # at 512k, so render.py caps their bounce paths at BRUTE_RAY_BATCH.
+    # Max rays per device batch. The traversal round's serial-link term
+    # is per-ROUND, nearly independent of packet count, so bigger batches
+    # amortize it, until the compaction tail's volume turns at 1M. 512k
+    # was chosen for BVH traversal on the previous accelerator and is not
+    # yet measured on the H100 (ROADMAP A5); scenes with no BVH have no
+    # link term to amortize, so render.py caps their bounce paths at
+    # BRUTE_RAY_BATCH.
     ray_batch: int = 1 << 19
     shard: str = "none"                # none | tiles | spp (SURVEY.md §2 table)
     mesh_subdiv: int = 6               # blob resolution (81920 tris at 6)
@@ -113,7 +111,7 @@ PRESETS: dict[str, RenderConfig] = {
         width=1920, height=1080, spp=256, scene="blob", mode="wavefront",
         max_depth=16, rr_start=3,
     ),
-    # 5. multi-chip tile-sharded, ICI allreduce accumulation, 4K, 1024 spp
+    # 5. multi-card tile-sharded, film allreduce accumulation, 4K, 1024 spp
     # (config names no tracer mode; megakernel measures fastest in SPMD,
     # where the wavefront's shrinking queue can't run — see mesh.py)
     "c5-multichip": RenderConfig(

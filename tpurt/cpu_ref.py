@@ -4,8 +4,9 @@ A deliberately independent NumPy implementation of the Appendix A spec
 (separate code, not shared with the JAX tracer, so bugs can't hide in common
 helpers). The ONLY shared contract is rng.py's threefry stream layout,
 evaluated on the CPU backend, so the oracle consumes bit-identical random
-draws; remaining CPU↔TPU image differences are pure float reassociation,
-which is why the parity metric is RMSE at fixed seed, not bit equality
+draws; remaining oracle-vs-device image differences are pure float
+reassociation (and, on the GPU, FMA contraction), which is why the parity
+metric is RMSE at fixed seed, not bit equality
 (BASELINE.json ``metric``; SURVEY.md §0 consequence 3).
 
 This is also BASELINE config 1's "CPU-runnable reference".
@@ -208,12 +209,15 @@ def _intersect(sc: Scene, o, d):
         e1, e2 = row[:, 12:15], row[:, 15:18]
         nrm = np.cross(e1, e2)
         den = (nrm * nrm).sum(-1)
-        # Sliver triangles can make den denormal: the TPU flushes denormals
-        # to zero and its den > 0 guard replaces them with 1.0, so
-        # thresholding at the smallest NORMAL f32 matches device semantics.
+        # Sliver triangles can make den denormal. trace.intersect replaces
+        # any den below the smallest NORMAL f32 with 1.0, so its answer is
+        # the same whether the backend flushes denormals to zero (XLA's
+        # CPU runtime does) or keeps them (XLA's GPU backend); the oracle
+        # applies the same threshold. A triangle that wins a hit has
+        # den >= det^2 > TRI_EPS^2, so this guards degenerate rows only.
         den = np.where(den >= np.finfo(np.float32).tiny, den, F(1.0))
         # The quotients are taken in f64 so the oracle never computes
-        # through inf (round-3 VERDICT weak #5 / round-4 item 6): a
+        # through inf: a
         # tiny-but-normal den (~1e-38) with an O(1) numerator overflows an
         # f32 divide. f64 division of f32 operands is exact to 52 bits and
         # 52 >= 2*24+2, so casting the in-range result back to f32 is the
@@ -224,7 +228,7 @@ def _intersect(sc: Scene, o, d):
         u64 = (np.cross(tvec, e2) * nrm).sum(-1).astype(np.float64) / den64
         v64 = (np.cross(e1, tvec) * nrm).sum(-1).astype(np.float64) / den64
         u = np.clip(u64, 0.0, 1.0).astype(F)
-        # the v bound (1 - u) is formed in f32 exactly as the TPU does
+        # the v bound (1 - u) is formed in f32 exactly as trace.intersect
         v = np.clip(v64, 0.0, (F(1.0) - u).astype(np.float64)).astype(F)
         ns = ((1.0 - u - v)[:, None] * row[:, 0:3]
               + u[:, None] * row[:, 3:6] + v[:, None] * row[:, 6:9])
@@ -280,10 +284,20 @@ def _scatter(sc: Scene, d, n, front, mat, draws):
 
 def render(cfg: RenderConfig, scene: Scene, cam) -> tuple[np.ndarray, dict]:
     """Render with NumPy; returns (film (H,W,3) linear f32, stats)."""
+    npix = cfg.width * cfg.height
+    film, stats = render_pixels(cfg, scene, cam, np.arange(npix))
+    return film.reshape(cfg.height, cfg.width, 3), stats
+
+
+def render_pixels(cfg: RenderConfig, scene: Scene, cam,
+                  pixel_ids) -> tuple[np.ndarray, dict]:
+    """Render only the given flat pixel ids of cfg's frame; returns
+    (film (len(pixel_ids), 3) linear f32, stats). RNG streams are keyed
+    by pixel id, so each value equals that pixel of the full render."""
     sc = _np_scene(scene)
     width, height = cfg.width, cfg.height
-    npix = width * height
-    pixel_ids = np.arange(npix, dtype=np.int64)
+    pixel_ids = np.asarray(pixel_ids, np.int64)
+    npix = pixel_ids.shape[0]
     film = np.zeros((npix, 3), np.float64)
     total_rays = 0
 
@@ -336,5 +350,4 @@ def render(cfg: RenderConfig, scene: Scene, cam) -> tuple[np.ndarray, dict]:
                 alive = alive & (~rr_on | survive)
         film += rad
 
-    film = (film / cfg.spp).astype(np.float32).reshape(height, width, 3)
-    return film, {"rays": total_rays}
+    return (film / cfg.spp).astype(np.float32), {"rays": total_rays}

@@ -2,8 +2,8 @@
 
 The reference's scalar ``sphere_hit``/``plane_hit``/``tri_hit`` functions
 (SURVEY.md §2) become all-rays × all-primitives tests combined with
-``jnp.where``/argmin — no divergent branches, so XLA keeps the VPU lanes
-dense. Each ``hit_*`` returns the best hit *of that primitive type* for
+``jnp.where``/argmin — no divergent branches, so every lane stays
+busy. Each ``hit_*`` returns the best hit *of that primitive type* for
 every ray; ``nearest`` in trace.py combines types.
 
 Spec anchors: sphere = half-b quadratic with a=1 (unit dirs), t-window
@@ -26,11 +26,11 @@ def hit_spheres(o, d, centers, radii, mat_ids, t_max):
     """o,d: (N,3) unit dirs; centers (S,3), radii (S,). Returns per-ray best
     (t, normal(outward), mat_id, hit_mask).
 
-    Layout note (measured on TPU v5e): the test runs over (S, N) arrays —
-    primitive axis LEADING, ray axis in the 128-lane minor dim. The naive
-    (N, S, 3) broadcast pads both minor dims (3 -> 128 lanes, S -> 8
-    sublanes), a ~40x memory-traffic blowup that measured ~2 ms per call
-    at N=131k; componentwise (S, N) math is dense.
+    Layout note: the test runs over (S, N) arrays — primitive axis
+    LEADING, ray axis minor. On the accelerator this was designed for,
+    the naive (N, S, 3) broadcast padded both minor dims to its (8, 128)
+    tile and multiplied memory traffic; componentwise (S, N) math is
+    dense on any backend.
     """
     ox, oy, oz = o[:, 0], o[:, 1], o[:, 2]            # (N,)
     dx, dy, dz = d[:, 0], d[:, 1], d[:, 2]
@@ -122,8 +122,8 @@ def moller_trumbore(o, d, v0, e1, e2, t_max):
 def hit_triangles_brute(o, d, v0, e1, e2, mat_ids, t_max):
     """All-pairs triangle test — used for small scenes / as the BVH oracle.
 
-    Componentwise over (T, N) — triangle axis leading, rays in the lane
-    dim — for the same measured layout reason as hit_spheres.
+    Componentwise over (T, N) — triangle axis leading, rays minor — for
+    the same layout reason as hit_spheres.
     """
     ox, oy, oz = o[:, 0][None, :], o[:, 1][None, :], o[:, 2][None, :]
     dx, dy, dz = d[:, 0][None, :], d[:, 1][None, :], d[:, 2][None, :]

@@ -112,8 +112,8 @@ def write_mesh(path: str, verts, faces) -> None:
     builder's camera auto-framing reads the f64 values, so anything
     lossier would move the camera). Pinned by
     tests/test_fixture_obj.py::test_obj_write_roundtrip_exact and
-    exercised at contract scale by the c3 bench (round-4 VERDICT
-    item 8 / BASELINE config 3's "OBJ" clause)."""
+    exercised at contract scale by the c3 bench (BASELINE config 3's
+    "OBJ" clause)."""
     verts = np.asarray(verts)
     faces = np.asarray(faces)
     with open(path, "w") as fh:

@@ -1,7 +1,7 @@
 """Binary PPM (P6) writer/reader (SURVEY.md §1 L10, Appendix A.9).
 
 Byte format fixed by decree: header ``P6\\n{W} {H}\\n255\\n`` then rows
-top-to-bottom, RGB interleaved uint8. cpu_ref and the TPU renderer share
+top-to-bottom, RGB interleaved uint8. cpu_ref and the device renderer share
 this writer, so files are byte-identical when the tonemapped pixels agree.
 """
 

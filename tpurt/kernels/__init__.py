@@ -1,5 +1,5 @@
 """Device kernels for the hot ops (SURVEY.md §1 L3/L4 kernel modules).
 
-traverse — BVH nearest-hit search (packet + per-ray variants)
-intersect — Pallas brute-force ray x triangle kernel for small scenes
+traverse — BVH nearest-hit search (packet + per-ray variants), plain
+jnp/lax that XLA compiles for the GPU
 """

@@ -1,4 +1,4 @@
-"""BVH traversal kernels (SURVEY.md §2 "BVH traversal" ->
+"""BVH traversal (SURVEY.md §2 "BVH traversal" ->
 tpurt/kernels/traverse.py).
 
 Two device implementations of nearest-triangle search over the flattened
@@ -6,33 +6,19 @@ skip-link BVH:
 
   * packet_nearest_tri — the production path: one traversal cursor per
     128-ray packet over the PacketBVH layout (see its docstring for the
-    measured design rationale).
+    design rationale).
   * bvh_nearest_tri — the straightforward per-ray walk over the binary
-    arrays; ~150x slower on TPU (gather-latency-bound) but trivially
-    correct, kept as the differential-testing oracle for the packet path.
+    arrays; far slower on the previous accelerator, where a row gather
+    cost a fixed few ns per row, but trivially correct, kept as the
+    differential-testing oracle for the packet path.
 
-Both are pure jnp/lax programs: on TPU the XLA pipeline compiles them to
-fused on-chip loops (gather + VPU), which profiling showed is the right
-tool here — a hand-written Mosaic kernel cannot express the per-lane
-dynamic HBM gathers this access pattern needs (SURVEY.md §7 hard part 2
-anticipated exactly this hybrid outcome).
-
-Round-2 verdict on the "Pallas traversal megakernel" (SURVEY §7 M3),
-with the full measured chain this time:
-  1. a traversal round is bound by its serial dependence chain of small
-     ops (~2-4 us per gather->reduce->select link,
-     benchmarks/probe_lanereduce.py), not by dense flops
-     (probe_leafsize.py: halving the MT volume doesn't move wall time);
-  2. a fused in-kernel loop would eliminate those op boundaries, BUT the
-     per-packet node fetch inside a Mosaic kernel is one
-     `make_async_copy` per dynamic row — strictly worse than XLA's
-     hardware gather (~1.3 ns/row amortized over thousands of rows),
-     and Pallas grid cells serialize on the single TensorCore;
-  3. the dense leaf phase alone was already built in Pallas and measured
-     3x SLOWER than the fused XLA phase (kernels/leaf.py).
-So the megakernel loses on the fetch side and the compute side
-independently; the XLA packet design with staged compaction remains the
-measured optimum on this hardware.
+Both are pure jnp/lax programs that XLA compiles for the GPU as they
+stand. The design was tuned on the previous accelerator, where a
+traversal round was bound by its serial chain of small dependent ops
+(gather -> slab -> lane reduce -> select), not by dense flops. Whether
+that holds on the H100, and whether one hand-written kernel per batch
+(Pallas on the Triton route, or CUDA via jax.ffi) beats it, is ROADMAP
+A3/A4; packet_nearest_tri is the one to beat.
 """
 
 from __future__ import annotations
@@ -100,87 +86,55 @@ def bvh_nearest_tri(scene: Scene, o, d, t_max):
 
 
 PACKET_R = 128  # rays per packet: one traversal cursor per 128 rays
-# node steps per traversal round. Round-2 grid (pre-octant, isolated c3
-# bounce-1): {3: 14.1, 4: 11.9, 6: 10.26, 8: 10.11, 12: 15.3} ms — 8 won
-# slightly. Round-5 re-grid on the OCTANT tree, END TO END at contract
-# spp (benchmarks/probe_retune_oct.py): 6 beats 8 by a reproducible
-# +0.8% (8.347/8.347 vs 8.281/8.285 interleaved, rays_cast identical),
-# consistent with octant's shorter chains (primaries 24->17 rounds)
-# shifting the ADV/backlog balance down one step. 10 loses 4.9%. A
-# follow-up interleaved A/B found the stronger form: keep the NARROW
-# stages at 8 (see ADV_MID/ADV_TAIL below) — 8.475/8.473 vs ungraded-6
-# 8.344/8.346, +2.3% total over the old all-8 schedule.
+# The schedule constants below were tuned end to end on the previous
+# accelerator and keep those values; none is yet measured on the H100
+# (ROADMAP A5).
+# node steps per traversal round at full width; the narrow stages use
+# ADV_MID/ADV_TAIL (wide stages are step-volume-bound, narrow tail stages
+# round-count-bound, where more steps per round means fewer rounds).
 ADV_STEPS = 6
-# Stage-graded phase A. Round 3 refuted grading UP (probe_advstage:
-# tail/mid ABOVE the full-width value only adds masked serial links on
-# stalled stragglers). Round 5's octant retune adopted the OPPOSITE
-# grade (probe_retune_oct A/B, interleaved, c3 contract): full-width
-# stages at 6 with tail/mid kept at 8 reads 8.475/8.473 Mrays/s vs
-# 8.344/8.346 ungraded-6 and 8.281/8.285 all-8 — +2.3% total,
-# rays_cast identical. Mechanism: wide stages' wall is step VOLUME
-# (fewer steps win under octant's shorter chains), while the narrow
-# tail stages are ROUND-floor-bound (BASELINE ceiling model), where 8
-# steps/round minimises round count at negligible masked-step cost.
 ADV_MID = 8     # stages with pp <= DRAIN2_MAX
 ADV_TAIL = 8    # stages with pp <= DRAIN4_MAX
 # node steps per round over the WIDE (8-ary) layout: each step covers ~3
 # binary levels, so fewer steps sustain the same leaf-enqueue rate.
-# Tuned round 3 on the c3 bounce-1 workload (benchmarks/probe_fanout.py).
 ADV_STEPS_WIDE = 3
-# node steps per round over the 4-ary layout (each step = 2 binary
-# levels; benchmarks/probe_fanout4.py tunes this)
+# node steps per round over the 4-ary layout (each step = 2 binary levels)
 ADV_STEPS_WIDE4 = 5
 # Production switch for the wide layout — see the selection comment in
-# packet_nearest_tri (measured slower under the current round regime).
+# packet_nearest_tri (it measured slower under the current round regime).
 WIDE_ENABLE = False
-# Mosaic slab-step kernel (kernels/slab.py): fuses the per-step column
-# extraction + slab + lane reduce + meta decode into one launch.
-# Decided by benchmarks/probe_slabk.py.
-SLABK_ENABLE = False
 # Octant-ordered traversal (bvh.PacketBVH.oct_nodes): each packet walks
 # the re-flatten whose child order is front-to-back for its majority
 # direction-sign octant, tightening t_best earlier so the slab test
-# culls far subtrees — the first lever that shrinks the per-packet
-# footprint union itself rather than rescheduling it. Scene builds ship
-# the 8 tables only when this is set (scene.py, same contract as
-# WIDE_ENABLE). Round-1's octant layouts lost under the old
-# one-box-per-row per-ray design and were deleted; this re-audition is
-# under CIP + per-round drains (benchmarks/probe_octant.py decides).
-# ADOPTED round 4: isolated -24%/-5.4%/-6.4% (primary/b1/b2, fewer
-# rounds AND fewer node visits at unchanged widths) and end-to-end c3
-# contract 8.09 -> 8.28 Mrays/s (2 runs each, quick_tpu protocol) —
-# the first adopted attack on the footprint-union volume itself.
+# culls far subtrees — it shrinks the per-packet footprint union itself
+# rather than rescheduling it (fewer rounds and fewer node visits at
+# unchanged widths). Scene builds ship the 8 tables only when this is set
+# (scene.py, same contract as WIDE_ENABLE).
 OCT_ENABLE = True
 MC_K = 8        # subtree cursors per packet (multi-cursor traversal)
 # Multi-cursor only pays for traversals that START narrow (deep-bounce
-# tail batches): at full width it was re-measured a LOSS in round 2
-# (bounce-1 13.4 vs 10.2 ms) — rounds only fell 152->107 while the
-# packet-round volume rose 1.75x (un-synced cursors lose cross-subtree
-# occlusion pruning: +38% leaf visits, and span-masked cursors decay too
-# slowly). Narrow entries remain latency-chain-bound, where splitting the
-# walk across MC_K overlapping gather chains wins.
+# tail batches): at full width it lost — the packet-round volume rose
+# more than the round count fell (un-synced cursors lose cross-subtree
+# occlusion pruning). Narrow entries remain latency-chain-bound, where
+# splitting the walk across MC_K overlapping gather chains wins.
 MC_PACKETS = 64
 # Banked-leaf ring size per cursor (leaf enqueues bank here between
 # drains; a cursor stalls only on ring overflow).
 BANK_S = 4
 # Batched-drain widths per stage: DRAIN_N = (tail, mid, full) ring
 # entries drained per round as ONE dense phase, for pp <= DRAIN4_MAX /
-# pp <= DRAIN2_MAX / larger (see the phase-B comment; tuned in
-# benchmarks/probe_drainbatch.py).
+# pp <= DRAIN2_MAX / larger (see the phase-B comment).
 DRAIN4_MAX = 64
 DRAIN2_MAX = 256
 DRAIN_N = (4, 2, 1)
 
 
 # Stage-ladder generator for the tail compactions (run_stages here and
-# the bounce stages in trace.py). The relative ladder shape (p//2 ..
-# p//2^max_stages) was re-auditioned for the round-3 batch bump
-# (probe_stagecaps.py): extending the ladder to an absolute 8-packet
-# floor ties 512k (345.6 vs 349.2 ns/primary) but LOSES 13% at 128k
-# (462.7 vs 408.3 — each extra stage is a real cost: one more
-# while_loop, compaction gather, and cond chain), and a ratio-4 ladder
-# loses at both widths (up-to-4x oversize dwell between compactions).
-# The round-2 relative shape stands; it is just generated here now.
+# the bounce stages in trace.py): capacities p//2 .. p//2^max_stages.
+# Deeper ladders (an absolute 8-packet floor) and ratio-4 ladders both
+# lost on the previous accelerator: each extra stage costs one more
+# while_loop, compaction gather and cond chain. Not yet measured on the
+# H100.
 STAGE_RATIO = 2
 STAGE_FLOOR = 8
 STAGE_MAX = 6            # deepest traversal stage: p // 2^6
@@ -201,14 +155,173 @@ def stage_caps(p: int, ratio: int = None, floor: int = None,
     return caps
 
 
+def node_fields(nodes, nid, packed: bool = False):
+    """Gather the (P, 16) node rows of cursors nid; returns (rows,
+    icol) where icol(c) reads meta column c as int32 (packed rows keep the
+    metas at slots 6-8 instead of 12-14)."""
+    # promise_in_bounds: nid is clamped by the caller already, and the
+    # default gather mode's clamp was a standalone kernel per adv step.
+    # Meta columns come back as (P,) f32 VALUES and are bitcast at the
+    # use sites, where a (P,) bitcast is free inside any consumer fusion.
+    rows = nodes.at[nid].get(mode="promise_in_bounds")   # (P, 16)
+
+    def icol(c):
+        # packed rows carry the metas at slots 6-8 instead of 12-14
+        return jax.lax.bitcast_convert_type(
+            rows[:, c - 6 if packed else c], jnp.int32)
+
+    return rows, icol
+
+
+def slab_any2(rows, t_best, oxs, ixs, extra_bits=None, packed: bool = False):
+    """Per-lane slab test of BOTH child boxes, reduced over lanes in
+    ONE fused reduction (two separate anys were two serialized links).
+
+    The two hit masks are packed into ONE (P, R) int32 hitcode (bit0 =
+    left, bit1 = right) and reduced with a single bitwise-or lane
+    reduction to (P,); stacking to (P, 2, R) and slicing back out cost
+    two extra kernels per adv step. The bit tests on the reduced (P,)
+    code are free — they fuse into the step epilogue.
+
+    extra_bits: optional (P,) int32 constant-per-packet bits OR'd
+    into every lane before the reduce, so they pass through to the
+    output code for free — adv_step rides the two leaf flags (bits
+    2-3) through here, which deleted the standalone per-step `eq`
+    kernel the flags otherwise cost."""
+    # Column access is a KEEPDIM slice rows[:, c:c+1] (a (P,1) operand
+    # broadcast along the ray axis inside the fusion), NOT
+    # rows[:, c, None]: the squeeze-to-(P,) form made XLA materialize
+    # all 12 columns through a separate relayout kernel per adv step.
+    code = None
+    for bit, off in ((1, 0), (2, 6)):
+        tn = jnp.full(t_best.shape, jnp.float32(T_MIN))
+        tf = t_best
+        for k in range(3):
+            if packed:
+                # (lo | hi<<16) bf16 pair per u32 slot; shift/mask +
+                # bitcast expand EXACTLY to f32 and fuse into the
+                # slab math — 6 column extracts instead of 12
+                cu = rows[:, off // 2 + k:off // 2 + k + 1]
+                lo = jax.lax.bitcast_convert_type(
+                    cu << jnp.uint32(16), jnp.float32)
+                hi = jax.lax.bitcast_convert_type(
+                    cu & jnp.uint32(0xFFFF0000), jnp.float32)
+                t0 = (lo - oxs[k]) * ixs[k]
+                t1 = (hi - oxs[k]) * ixs[k]
+            else:
+                t0 = (rows[:, off + k:off + k + 1] - oxs[k]) * ixs[k]
+                t1 = (rows[:, off + k + 3:off + k + 4] - oxs[k]) * ixs[k]
+            tn = jnp.maximum(tn, jnp.minimum(t0, t1))
+            tf = jnp.minimum(tf, jnp.maximum(t0, t1))
+        c = jnp.where(tn <= tf, jnp.int32(bit), jnp.int32(0))
+        code = c if code is None else code | c
+    if extra_bits is not None:
+        code = code | extra_bits[:, None]
+    code = jax.lax.reduce(code, jnp.int32(0), jax.lax.bitwise_or,
+                          (1,))                          # (P,)
+    return code
+
+
+def leaf_hits(tri, vrow, ro, rd, t_best):
+    """Dense Möller–Trumbore of each packet's gathered leaf rows against
+    its PACKET_R rays — the drain's phase B.
+
+    tri: (P*D, LEAF_F*LN) leaf rows, D per packet in pop order; vrow:
+    (P, D) bool row validity; ro, rd: 3-tuples of (P, R) ray origin and
+    direction components; t_best: (P, R) current windows. Returns (tj,
+    better, nx, ny, nz, mat, gid), each (P, R): the nearest valid t, the
+    mask of rays it improves, and that winner's unit normal, material
+    and source triangle id. argmin takes the first minimum along the
+    (D, LN) pop order, so ties resolve as D sequential drains would.
+    """
+    from ..bvh import PACKET_LEAF_N as LN
+
+    pp, D = vrow.shape
+    dl = D * LN
+
+    def tc(k):                                  # (P, D*LN, 1)
+        return tri[:, k * LN:(k + 1) * LN].reshape(
+            pp, dl)[:, :, None]
+
+    v0x, v0y, v0z = tc(0), tc(1), tc(2)
+    e1x, e1y, e1z = tc(3), tc(4), tc(5)
+    e2x, e2y, e2z = tc(6), tc(7), tc(8)
+    matb = jax.lax.bitcast_convert_type(
+        tri[:, 9 * LN:10 * LN].reshape(pp, dl), jnp.int32)
+    gidb = jax.lax.bitcast_convert_type(
+        tri[:, 10 * LN:11 * LN].reshape(pp, dl), jnp.int32)
+    pend3 = jnp.broadcast_to(
+        vrow[:, :, None], (pp, D, LN)).reshape(pp, dl)[:, :, None]
+
+    rox, roy, roz = (c[:, None, :] for c in ro)
+    rdx, rdy, rdz = (c[:, None, :] for c in rd)
+
+    # pvec = d x e2
+    pvx = rdy * e2z - rdz * e2y
+    pvy = rdz * e2x - rdx * e2z
+    pvz = rdx * e2y - rdy * e2x
+    det = e1x * pvx + e1y * pvy + e1z * pvz     # (P, D*LN, R)
+    nondegen = jnp.abs(det) > geometry.TRI_EPS
+    invd = 1.0 / jnp.where(nondegen, det, 1.0)
+    # tvec = o - v0
+    tvx, tvy, tvz = rox - v0x, roy - v0y, roz - v0z
+    u = (tvx * pvx + tvy * pvy + tvz * pvz) * invd
+    # qvec = tvec x e1
+    qvx = tvy * e1z - tvz * e1y
+    qvy = tvz * e1x - tvx * e1z
+    qvz = tvx * e1y - tvy * e1x
+    v = (rdx * qvx + rdy * qvy + rdz * qvz) * invd
+    t = (e2x * qvx + e2y * qvy + e2z * qvz) * invd
+    valid = (
+        nondegen & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
+        & (t > T_MIN) & (t < t_best[:, None, :])
+        & pend3
+    )
+    t = jnp.where(valid, t, INF)
+    tj = jnp.min(t, axis=1)                     # (P, R)
+    j = jnp.argmin(t, axis=1)
+    better = tj < t_best
+
+    # per-leaf-tri geometric normals (P, D*LN), winner-select
+    # via one-hot
+    gnx = (e1y[:, :, 0] * e2z[:, :, 0]
+           - e1z[:, :, 0] * e2y[:, :, 0])
+    gny = (e1z[:, :, 0] * e2x[:, :, 0]
+           - e1x[:, :, 0] * e2z[:, :, 0])
+    gnz = (e1x[:, :, 0] * e2y[:, :, 0]
+           - e1y[:, :, 0] * e2x[:, :, 0])
+    glen = jnp.sqrt(jnp.maximum(gnx**2 + gny**2 + gnz**2,
+                                1e-24))
+    gnx, gny, gnz = gnx / glen, gny / glen, gnz / glen
+
+    onehot = jnp.arange(dl)[None, :, None] == j[:, None, :]
+    ohf = onehot.astype(jnp.float32)
+    w_nx = jnp.sum(gnx[:, :, None] * ohf, axis=1)
+    w_ny = jnp.sum(gny[:, :, None] * ohf, axis=1)
+    w_nz = jnp.sum(gnz[:, :, None] * ohf, axis=1)
+    # The int payloads ride the SAME f32 one-hot sweep as
+    # the normals — exact (mat/gid values < 2^24; non-winner
+    # lanes contribute x*0.0 = exact 0.0, the winner rides
+    # through the f32 roundtrip losslessly): XLA splits reduction
+    # fusions by dtype, so an s32 where+sum pair would be a second
+    # full (P, dl, R) sweep.
+    w_m = jnp.sum(matb.astype(jnp.float32)[:, :, None] * ohf,
+                  axis=1).astype(jnp.int32)
+    w_g = jnp.sum(gidb.astype(jnp.float32)[:, :, None] * ohf,
+                  axis=1).astype(jnp.int32)
+
+    return tj, better, w_nx, w_ny, w_nz, w_m, w_g
+
+
 def packet_nearest_tri(scene: Scene, o, d, t_max, with_counters=False):
     """Packet traversal over the child-in-parent layout (bvh.PacketBVH).
 
-    Design rationale (measured on this TPU, see SURVEY.md SS7 hard part 1):
-    XLA row-gathers cost ~3-8 ns per row nearly independent of row width,
-    so per-ray traversal is gather-latency-bound at ~2 Mrays/s. Here ONE
-    traversal cursor serves a packet of PACKET_R rays — the classic packet
-    traversal reborn for a vector machine:
+    Design rationale (SURVEY.md §7 hard part 1): on the accelerator this
+    was designed for, an XLA row gather cost a fixed few ns per row
+    nearly independent of row width, so a per-ray walk was
+    gather-latency-bound. Here ONE traversal cursor serves a packet of
+    PACKET_R rays — classic packet traversal on a vector machine. Whether
+    a per-ray walk in one kernel wins on the H100 is ROADMAP A4:
 
       * one (P, 16) node-row gather per visited INNER node tests BOTH
         children's boxes (P = N/128 packets); missed subtrees are never
@@ -218,7 +331,7 @@ def packet_nearest_tri(scene: Scene, o, d, t_max, with_counters=False):
         (conservative union); per-ray t windows still prune;
       * leaf visits gather one row holding all PACKET_LEAF_N triangles
         (40 bytes each) and intersect them against all 128 rays as dense
-        (P, LN, R) math on the VPU — no per-ray memory access at all.
+        (P, LN, R) elementwise math — no per-ray memory access at all.
 
     Round structure: each round advances every active cursor ADV_STEPS
     nodes, banking leaf enqueues into a BANK_S-deep ring per cursor (a
@@ -226,28 +339,25 @@ def packet_nearest_tri(scene: Scene, o, d, t_max, with_counters=False):
     pending packet's ring head — several ring entries per round at tail
     widths (see the phase-B comment: rounds are gated by the straggler
     packet's leaf backlog, so the tail drains multiple entries per round
-    where dense math is cheap). A round has a hard LATENCY floor (~25 us
-    — dozens of kernel launches per round; the in-round gathers also form
-    a serial dependence chain), so the tail is round-count-bound, not
+    where dense math is cheap). A round has a hard LATENCY floor — dozens
+    of kernel launches per round, and the in-round gathers form a serial
+    dependence chain — so the tail is round-count-bound, not
     width-bound. Mitigations:
 
       * staged tail compaction (run_stages): rounds cost O(live packet
         set), so still-active packets are gathered into half-size arrays
-        as the set shrinks (cheap (P,128)-row gathers; (N,)-row ray
-        permutes measured ~9 ns/row = ~11 ms at 131k and are NOT used);
+        as the set shrinks (cheap (P,128)-row gathers; per-ray (N,)-row
+        permutes cost far more and are NOT used);
       * multi-cursor traversal (mc_wide) for traversals that START
         narrow (<= MC_PACKETS packets — deep-bounce tail batches): each
         packet runs MC_K cursors, one per precomputed subtree row span
         (bvh cut), merged exactly once at the end — see mc_wide's
-        docstring and the MC_PACKETS comment for the measured trade.
+        docstring and the MC_PACKETS comment for the trade.
 
     Returns per-ray (t, normal, mat, found, gid) for the N input
     rays; gid is the original triangle index of the winner (-1 if none) —
     it feeds the optional vn shading-normal interpolation (A.5).
     """
-    from ..bvh import LEAF_F
-    from ..bvh import PACKET_LEAF_N as LN
-
     n = o.shape[0]
     pad = (-n) % PACKET_R
     if pad:
@@ -260,10 +370,9 @@ def packet_nearest_tri(scene: Scene, o, d, t_max, with_counters=False):
         t_max = jnp.concatenate([t_max, jnp.zeros(pad, jnp.float32)])
     p = o.shape[0] // PACKET_R
 
-    # Fully scalar SoA: every hot array is (P, R) or (P, LN, R) so the lane
-    # dimension is R=128 — a trailing xyz dim of 3 would be padded to the
-    # 128-lane tile and blow memory traffic up ~40x (measured: the packed
-    # variant collapsed from 17.7 to 0.2 Mrays/s at 1M rays).
+    # Fully scalar SoA: every hot array is (P, R) or (P, LN, R) with the
+    # ray axis R=128 minor — a trailing xyz dim of 3 was padded to the
+    # previous accelerator's 128-lane tile and multiplied memory traffic.
     ox, oy, oz = (o[:, k].reshape(p, PACKET_R) for k in range(3))
     dx, dy, dz = (d[:, k].reshape(p, PACKET_R) for k in range(3))
 
@@ -274,12 +383,10 @@ def packet_nearest_tri(scene: Scene, o, d, t_max, with_counters=False):
     ix, iy, iz = inv(dx), inv(dy), inv(dz)
 
     # Wide-fanout (8-ary) layout (bvh.PacketBVH8): one 64-f32 row gather
-    # tests EIGHT subtrees, shortening the straggler walk 2.9x (990 ->
-    # 330 visits) — but per-round it tests MORE boxes (3x8 vs 8x2), and
-    # under the measured walk-gated round regime that box volume loses:
-    # bounce-1 12.4 vs 10.2 ms (probe_fanout.py, probe_drainbatch.py).
-    # Gated off in production until a regime change flips the trade
-    # (probe_advdrain.py re-auditions it with keep-up drains).
+    # tests EIGHT subtrees, shortening the straggler walk ~3x — but per
+    # round it tests MORE boxes (3x8 vs 8x2), and under the walk-gated
+    # round regime that box volume lost. Gated off in production until a
+    # regime change flips the trade.
     wide = WIDE_ENABLE and scene.pk8_nodes is not None
     nodes = scene.pk8_nodes if wide else scene.pk_nodes  # (Mw,64)|(Mi,16)
     leaves = scene.pk8_leaves if wide else scene.pk_leaves
@@ -303,81 +410,8 @@ def packet_nearest_tri(scene: Scene, o, d, t_max, with_counters=False):
     # back to f32 is EXACT and boxes were rounded outward at build time,
     # so the slab stays a conservative cull on f32 arithmetic — images
     # byte-identical, while each adv step extracts 6 box columns
-    # instead of 12 (the slice_reduce census term; probe_bf16.py).
+    # instead of 12. Off by default.
     packed = (not wide) and nodes.dtype == jnp.uint32
-
-    def node_fields(nid):
-        # promise_in_bounds: nid is clamped by the caller already; the
-        # default gather mode's clamp was a WHOLE standalone kernel per
-        # adv step (round-4 HLO dump: maximum_clamp_fusion, 8/round).
-        # Meta columns come back as (P,) f32 VALUES and are bitcast at
-        # the use sites: the bitcasts/eq on column slices formed two more
-        # standalone kernels per step when done here (the column extract
-        # is the layout-forced kernel; a (P,) bitcast is free inside any
-        # consumer fusion).
-        rows = nodes.at[nid].get(mode="promise_in_bounds")   # (P, 16)
-
-        def icol(c):
-            # packed rows carry the metas at slots 6-8 instead of 12-14
-            return jax.lax.bitcast_convert_type(
-                rows[:, c - 6 if packed else c], jnp.int32)
-
-        return rows, icol
-
-    def slab_any2(rows, t_best, oxs, ixs, extra_bits=None):
-        """Per-lane slab test of BOTH child boxes, reduced over lanes in
-        ONE fused reduction (a serialized lane-reduce link costs ~2-4 us,
-        probe_lanereduce.py — two separate anys were two links).
-
-        Round-4 fusion surgery: the two hit masks are packed into ONE
-        (P, R) int32 hitcode (bit0 = left, bit1 = right) and reduced with
-        a single bitwise-or lane reduction to (P,). The round-3 form
-        (stack to (P, 2, R), reduce_or, then slice h_l/h_r back out) cost
-        two EXTRA kernels per adv step on TPU: the pad/concatenate into
-        (P, 2, R) and the (P, 2) -> 2x(P,) retile slice (HLO dump,
-        benchmarks/dump_hlo.py). The bit tests on the reduced (P,) code
-        are free — they fuse into the step epilogue.
-
-        extra_bits: optional (P,) int32 constant-per-packet bits OR'd
-        into every lane before the reduce, so they pass through to the
-        output code for free — adv_step rides the two leaf flags (bits
-        2-3) through here, which deleted the standalone per-step `eq`
-        kernel the flags otherwise cost."""
-        # Column access is a KEEPDIM slice rows[:, c:c+1] (a (P,1)
-        # sublane-resident operand broadcast along lanes inside the
-        # fusion), NOT rows[:, c, None]: the squeeze-to-(P,) form made
-        # XLA materialize all 12 columns through a separate
-        # sublane->lane relayout kernel per adv step (slice_reduce
-        # fusion, ~14% of the stage-0 round's estimated cycles —
-        # benchmarks/dump_hlo.py census, round 4).
-        code = None
-        for bit, off in ((1, 0), (2, 6)):
-            tn = jnp.full(t_best.shape, jnp.float32(T_MIN))
-            tf = t_best
-            for k in range(3):
-                if packed:
-                    # (lo | hi<<16) bf16 pair per u32 slot; shift/mask +
-                    # bitcast expand EXACTLY to f32 and fuse into the
-                    # slab math — 6 column extracts instead of 12
-                    cu = rows[:, off // 2 + k:off // 2 + k + 1]
-                    lo = jax.lax.bitcast_convert_type(
-                        cu << jnp.uint32(16), jnp.float32)
-                    hi = jax.lax.bitcast_convert_type(
-                        cu & jnp.uint32(0xFFFF0000), jnp.float32)
-                    t0 = (lo - oxs[k]) * ixs[k]
-                    t1 = (hi - oxs[k]) * ixs[k]
-                else:
-                    t0 = (rows[:, off + k:off + k + 1] - oxs[k]) * ixs[k]
-                    t1 = (rows[:, off + k + 3:off + k + 4] - oxs[k]) * ixs[k]
-                tn = jnp.maximum(tn, jnp.minimum(t0, t1))
-                tf = jnp.minimum(tf, jnp.maximum(t0, t1))
-            c = jnp.where(tn <= tf, jnp.int32(bit), jnp.int32(0))
-            code = c if code is None else code | c
-        if extra_bits is not None:
-            code = code | extra_bits[:, None]
-        code = jax.lax.reduce(code, jnp.int32(0), jax.lax.bitwise_or,
-                              (1,))                          # (P,)
-        return code
 
     def slab_anyw(rows, t_best, oxs, ixs, fan, extra_bits=None):
         """Per-lane slab test of all `fan` child boxes of a wide row
@@ -434,22 +468,11 @@ def packet_nearest_tri(scene: Scene, o, d, t_max, with_counters=False):
             def adv_step(nd, banks, qh, qt):
                 cnt = qt - qh
                 act = (nd >= 0) & (cnt < BANK_S)   # >= 1 slot free
-                if (SLABK_ENABLE and not packed
-                        and jax.default_backend() == "tpu"):
-                    # Mosaic slab step: extract + slab + lane reduce +
-                    # meta decode in ONE kernel (see kernels/slab.py;
-                    # adoption decided by benchmarks/probe_slabk.py)
-                    from . import slab as slab_k
-                    rows = nodes.at[jnp.maximum(nd, 0)].get(
-                        mode="promise_in_bounds")
-                    code, m_l, m_r, skip = slab_k.slab_step(
-                        rows, oxs[0], oxs[1], oxs[2],
-                        ixs[0], ixs[1], ixs[2], t_best)
-                else:
-                    rows, icol = node_fields(jnp.maximum(nd, 0))
-                    m_l, m_r, skip = icol(12), icol(13), icol(14)
-                    code = slab_any2(rows, t_best, oxs, ixs,
-                                     ((m_l & 1) << 2) | ((m_r & 1) << 3))
+                rows, icol = node_fields(nodes, jnp.maximum(nd, 0), packed)
+                m_l, m_r, skip = icol(12), icol(13), icol(14)
+                code = slab_any2(rows, t_best, oxs, ixs,
+                                 ((m_l & 1) << 2) | ((m_r & 1) << 3),
+                                 packed)
                 hit_l = ((code & 1) != 0) & act
                 hit_r = ((code & 2) != 0) & act
                 leaf_l = (code & 4) != 0
@@ -547,19 +570,16 @@ def packet_nearest_tri(scene: Scene, o, d, t_max, with_counters=False):
                 it_adv = it_adv + adv_here
 
             # Phase B: dense leaf intersection, draining ring heads.
-            # Measured design history (benchmarks/probe_roundcost.py):
-            # pending-packet compaction (gather pending packets into a
-            # cap-sized block before the dense math) LOSES — the cap turns
-            # into a drain-rate limit and the round count balloons
-            # 228 -> 521+ (rounds are gated by the STRAGGLER packet's leaf
-            # backlog, not by node-chain length: doubling ADV_STEPS only
-            # took 228 -> 216). So: every pending packet drains every
-            # round — and since round 3, multiple ring entries drain as
-            # ONE BATCHED dense phase over (P, D*LN, R): the round-2
-            # design ran D sequential drain chains (~15 serial links
-            # each); batching pays the same dense flops in a single chain,
-            # so the leaf-gated round count divides by D at ~constant
-            # round cost (benchmarks/probe_drainbatch.py).
+            # Pending-packet compaction (gather pending packets into a
+            # cap-sized block before the dense math) lost on the previous
+            # accelerator — the cap turns into a drain-rate limit and the
+            # round count more than doubles (rounds are gated by the
+            # STRAGGLER packet's leaf backlog, not by node-chain length).
+            # So every pending packet drains every round, and multiple
+            # ring entries drain as ONE BATCHED dense phase over
+            # (P, D*LN, R): D sequential drain chains would pay D serial
+            # chains of links for the same dense flops, so the leaf-gated
+            # round count divides by D at ~constant round cost.
             n_drains = DRAIN_N[0] if pp <= DRAIN4_MAX else (
                 DRAIN_N[1] if pp <= DRAIN2_MAX else DRAIN_N[2])
 
@@ -621,94 +641,18 @@ def packet_nearest_tri(scene: Scene, o, d, t_max, with_counters=False):
                     # real row-drains this round (dense work not wasted)
                     it_pend = it_pend + jnp.sum(vrow, dtype=jnp.int32)
 
-                dl = D * LN
-                # Flat (pp*D, LEAF_F*LN) gather + 2D column-block slices.
-                # The round-3 form gathered (pp, D, 384) and sliced the
-                # 4D reshape tri[:, :, k], which XLA lowered as a
-                # {1,0}->{0,1} relayout COPY of the whole gather result
-                # plus one (pp, dl) retile copy PER COMPONENT — 12 copy
-                # kernels and ~2.7 MB of pure layout traffic per round
-                # (the device profile's 10.6 ms "while-carry copies" were
-                # actually these; see benchmarks/dump_hlo.py). Row-major
-                # reshape (pp*D, LN) -> (pp, D*LN) preserves the (D, LN)
-                # drain-major order, so winner ties resolve identically.
+                # Flat (pp*D, LEAF_F*LN) gather + 2D column-block slices
+                # (leaf_hits): gathering (pp, D, 384) and slicing the 4D
+                # reshape tri[:, :, k] made XLA emit a relayout copy of
+                # the whole gather plus one retile copy per component.
+                # Row-major reshape (pp*D, LN) -> (pp, D*LN) preserves the
+                # (D, LN) drain-major order, so winner ties resolve
+                # identically.
                 tri = leaves.at[row_mat.reshape(pp * D)].get(
                     mode="promise_in_bounds")        # (pp*D, LEAF_F*LN)
 
-                def tc(k):                                  # (P, D*LN, 1)
-                    return tri[:, k * LN:(k + 1) * LN].reshape(
-                        pp, dl)[:, :, None]
-
-                v0x, v0y, v0z = tc(0), tc(1), tc(2)
-                e1x, e1y, e1z = tc(3), tc(4), tc(5)
-                e2x, e2y, e2z = tc(6), tc(7), tc(8)
-                matb = jax.lax.bitcast_convert_type(
-                    tri[:, 9 * LN:10 * LN].reshape(pp, dl), jnp.int32)
-                gidb = jax.lax.bitcast_convert_type(
-                    tri[:, 10 * LN:11 * LN].reshape(pp, dl), jnp.int32)
-                pend3 = jnp.broadcast_to(
-                    vrow[:, :, None], (pp, D, LN)).reshape(pp, dl)[:, :, None]
-
-                rdx, rdy, rdz = (sdx[:, None, :], sdy[:, None, :],
-                                 sdz[:, None, :])
-                rox, roy, roz = (sox[:, None, :], soy[:, None, :],
-                                 soz[:, None, :])
-
-                # pvec = d x e2
-                pvx = rdy * e2z - rdz * e2y
-                pvy = rdz * e2x - rdx * e2z
-                pvz = rdx * e2y - rdy * e2x
-                det = e1x * pvx + e1y * pvy + e1z * pvz     # (P, D*LN, R)
-                nondegen = jnp.abs(det) > geometry.TRI_EPS
-                invd = 1.0 / jnp.where(nondegen, det, 1.0)
-                # tvec = o - v0
-                tvx, tvy, tvz = rox - v0x, roy - v0y, roz - v0z
-                u = (tvx * pvx + tvy * pvy + tvz * pvz) * invd
-                # qvec = tvec x e1
-                qvx = tvy * e1z - tvz * e1y
-                qvy = tvz * e1x - tvx * e1z
-                qvz = tvx * e1y - tvy * e1x
-                v = (rdx * qvx + rdy * qvy + rdz * qvz) * invd
-                t = (e2x * qvx + e2y * qvy + e2z * qvz) * invd
-                valid = (
-                    nondegen & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
-                    & (t > T_MIN) & (t < t_best[:, None, :])
-                    & pend3
-                )
-                t = jnp.where(valid, t, INF)
-                tj = jnp.min(t, axis=1)                     # (P, R)
-                j = jnp.argmin(t, axis=1)
-                better = tj < t_best
-
-                # per-leaf-tri geometric normals (P, D*LN), winner-select
-                # via one-hot
-                gnx = (e1y[:, :, 0] * e2z[:, :, 0]
-                       - e1z[:, :, 0] * e2y[:, :, 0])
-                gny = (e1z[:, :, 0] * e2x[:, :, 0]
-                       - e1x[:, :, 0] * e2z[:, :, 0])
-                gnz = (e1x[:, :, 0] * e2y[:, :, 0]
-                       - e1y[:, :, 0] * e2x[:, :, 0])
-                glen = jnp.sqrt(jnp.maximum(gnx**2 + gny**2 + gnz**2,
-                                            1e-24))
-                gnx, gny, gnz = gnx / glen, gny / glen, gnz / glen
-
-                onehot = jnp.arange(dl)[None, :, None] == j[:, None, :]
-                ohf = onehot.astype(jnp.float32)
-                w_nx = jnp.sum(gnx[:, :, None] * ohf, axis=1)
-                w_ny = jnp.sum(gny[:, :, None] * ohf, axis=1)
-                w_nz = jnp.sum(gnz[:, :, None] * ohf, axis=1)
-                # The int payloads ride the SAME f32 one-hot sweep as
-                # the normals — exact (mat/gid values < 2^24; non-winner
-                # lanes contribute x*0.0 = exact 0.0, the winner rides
-                # through the f32 roundtrip losslessly). The former
-                # s32 where+sum pair was a SECOND full (P, dl, R) sweep
-                # kernel per drain: XLA splits reduction fusions by
-                # dtype (select_reduce.35/36, ~13% of the stage-0
-                # round's estimated cycles — dump_hlo census, round 4).
-                w_m = jnp.sum(matb.astype(jnp.float32)[:, :, None] * ohf,
-                              axis=1).astype(jnp.int32)
-                w_g = jnp.sum(gidb.astype(jnp.float32)[:, :, None] * ohf,
-                              axis=1).astype(jnp.int32)
+                tj, better, w_nx, w_ny, w_nz, w_m, w_g = leaf_hits(
+                    tri, vrow, (sox, soy, soz), (sdx, sdy, sdz), t_best)
 
                 t_best = jnp.where(better, tj, t_best)
                 nx = jnp.where(better, w_nx, nx)
@@ -739,9 +683,8 @@ def packet_nearest_tri(scene: Scene, o, d, t_max, with_counters=False):
         return jnp.any((st[0] >= 0) | (st[7] > st[6]))
 
     stage_log: list = []   # [(array_width, rounds_cum, pp_cum)] — only
-    # appended under with_counters; feeds the per-(bounce, stage)
-    # attribution (benchmarks/probe_stagewalls.py): diffs of consecutive
-    # entries give each stage's round count and Σpp at its array width.
+    # appended under with_counters; diffs of consecutive entries give each
+    # stage's round count and Σpp at its array width.
 
     def run_stages(state, caps):
         """Tail compaction: traversal rounds cost O(live packet set), but a
@@ -786,14 +729,13 @@ def packet_nearest_tri(scene: Scene, o, d, t_max, with_counters=False):
         end (argmin over cursors per ray). The virtual-cursor axis
         stage-compacts like ordinary packets.
 
-        Measured rationale (benchmarks/probe_lanereduce.py +
-        probe_roundcost.py): a traversal round's cost is dominated by the
-        serial dependence chain of small ops (gather -> slab -> lane-any
-        -> select, ~2-4 us per link), so narrow-entry traversals are
-        round-latency-bound and splitting the walk across MC_K
-        overlapping gather chains wins. At FULL width the same split was
-        measured a loss (see the MC_PACKETS comment), so this engages
-        only for narrow entries; the final merge is exact either way.
+        Rationale (measured on the previous accelerator): a traversal
+        round's cost was dominated by the serial dependence chain of small
+        ops (gather -> slab -> lane-any -> select), so narrow-entry
+        traversals are round-latency-bound and splitting the walk across
+        MC_K overlapping gather chains wins. At FULL width the same split
+        lost (see the MC_PACKETS comment), so this engages only for
+        narrow entries; the final merge is exact either way.
         """
         (node, end, b0, b1, b2, b3, qh, qt,
          sox, soy, soz, sdx, sdy, sdz, six, siy, siz,

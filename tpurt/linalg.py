@@ -3,7 +3,7 @@
 Replaces the reference's C++ vec3/ray structs (SURVEY.md §1 L1, §2
 "Vec/ray math"): instead of a scalar ``v3`` type threaded through recursive
 calls, every function here maps over a whole batch of rays at once so XLA
-lowers it onto the 8x128 VPU.
+lowers it to dense elementwise kernels.
 
 Conventions (SURVEY.md Appendix A.1): right-handed, y-up, linear RGB f32.
 """

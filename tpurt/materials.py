@@ -4,7 +4,7 @@ The reference switches on material type per ray — the canonical divergence
 point in a path tracer (SURVEY.md §3.1 "DIVERGENCE"). Here every ray
 computes all three candidate scatter directions from the *same* per-ray
 draw slots (rng.py layout) and a 3-way ``jnp.where`` selects by material id,
-so the VPU never diverges. Cost: ~3x the scatter arithmetic, which is noise
+so no lane ever diverges. Cost: ~3x the scatter arithmetic, which is noise
 next to traversal; benefit: zero lane masking and an RNG stream that is
 independent of material (helping cpu_ref parity).
 

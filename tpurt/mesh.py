@@ -1,17 +1,19 @@
-"""Multi-chip rendering: shard_map over the device mesh + ICI collectives
-(SURVEY.md §1 L0/L9, §2 "Distributed communication backend").
+"""Multi-card rendering: shard_map over the device mesh + one film
+collective (SURVEY.md §1 L0/L9, §2 "Distributed communication backend").
 
 Replaces the reference's thread-pool work queue: instead of worker threads
 pulling tile indices from an atomic counter, the frame's flat pixel axis is
-statically sharded across a 1-D ``('chips',)`` mesh — each chip traces its
-own pixel block in lockstep SPMD, and the only cross-chip traffic is the
-final film collective over ICI (BASELINE "final psum over ICI"):
+statically sharded across a 1-D ``('chips',)`` mesh over
+``jax.devices()`` — each card traces its own pixel block in lockstep SPMD,
+and the only cross-card traffic is the final film collective, which XLA
+hands to NCCL over NVLink (the cards of one host are joined all to all,
+so the mesh follows the algorithm alone):
 
   * shard='tiles': pixels sharded, film stays sharded (all_gather happens
     implicitly when the host reads the global array); ray-count psum.
   * shard='spp' : the DP-over-samples alternative (SURVEY.md §2 table, TP
     analog) — every chip renders all pixels with a disjoint slice of the
-    sample indices, film is psum-reduced over ICI.
+    sample indices, film is psum-reduced across cards.
 
 Because RNG streams are (pixel, sample)-counter-derived, both shardings
 produce the same image as the 1-chip render up to float summation order —
@@ -23,11 +25,12 @@ into a host film array, so checkpoint/resume composes with sharding
 (SURVEY.md §5 checkpoint bullet — written about config 5's multi-chip
 renders).
 
-Degrades to a 1-chip mesh on this host's single TPU [ENV]; tested on an
-8-device forced-CPU mesh. All device buffers are explicitly placed on the
-mesh (device_put with a NamedSharding), never on the default backend, so
-the whole module works on a mesh that is NOT the default platform — e.g.
-the fake CPU mesh while the TPU client can't even initialize.
+Runs on every local card by default (a 1-card mesh on a one-GPU host);
+tested on an 8-device forced-CPU mesh and checked on four H100s by
+``chip_smoke.py --four-card``. All device buffers are explicitly placed on
+the mesh (device_put with a NamedSharding), never on the default backend,
+so the whole module works on a mesh that is NOT the default platform —
+e.g. the fake CPU mesh while the GPU client can't even initialize.
 """
 
 from __future__ import annotations
@@ -57,11 +60,10 @@ def make_mesh(n_devices: Optional[int] = None, devices=None) -> Mesh:
     return Mesh(np.asarray(devs), (AXIS,))
 
 
-# Per-chip pixel sub-block. Deliberately NOT bumped with ray_batch's
-# round-3 move to 512k: on c5 (4K, depth 16, rr 3) a 512k sub-block
-# measured wash-to-25%-slower (probe_batchscale.py SCOPE note) — at
+# Per-card pixel sub-block. Smaller than ray_batch: on c5 (4K, depth 16,
+# rr 3) a 512k sub-block was no faster on the previous accelerator — at
 # contract depth the round-floor-bound deep-bounce tail dominates, and
-# batch width only compresses fresh bounces.
+# batch width only compresses fresh bounces. Not yet measured on the H100.
 SUB_BLOCK = 1 << 17
 
 
@@ -162,7 +164,8 @@ def _tiles_chunk(scene: Scene, cam, gpix_pad, gvalid_pad, sample_ids, seed,
 def _spp_chunk(scene: Scene, cam, pixel_ids, sample_ids_pad, seed,
                mesh: Mesh, mode: str, max_depth: int, rr_start,
                width: int, height: int):
-    """One pixel-block over the sample-sharded axis; film psum over ICI."""
+    """One pixel-block over the sample-sharded axis; film psum across
+    cards."""
 
     def body(scene, cam, pixel_ids, sample_block, seed):
         valid = jnp.ones(pixel_ids.shape, bool)

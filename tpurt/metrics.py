@@ -70,6 +70,10 @@ def scene_stats(scene) -> dict:
         "materials": int(scene.mat_type.shape[0]),
         "bvh": scene.bvh_lo is not None,
     }
+    if scene.tri_src is not None:
+        # source triangles, without the BVH's leaf padding
+        src = np.asarray(scene.tri_src)
+        out["mesh_triangles"] = int(np.unique(src[src >= 0]).size)
     if scene.bvh_lo is not None:
         out["bvh_nodes"] = int(np.asarray(scene.bvh_lo).shape[0])
         out["bvh_leaves"] = int((np.asarray(scene.bvh_count) > 0).sum())

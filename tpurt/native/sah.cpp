@@ -80,7 +80,7 @@ long long sah_partition(const float* tlo, const float* thi,
     for (int axis = 0; axis < 3; ++axis) {
         // np predicate mirrored exactly: skip only when ext < 1e-12 —
         // NaN compares false on BOTH sides there, so NaN extents stay on
-        // the non-skip branch just like NumPy (round-3 ADVICE).
+        // the non-skip branch just like NumPy.
         if ((double)ext[axis] < 1e-12) continue;
         std::fill(blo.begin(), blo.end(), INF);
         std::fill(bhi.begin(), bhi.end(), -INF);

@@ -7,10 +7,11 @@ bit-reproducible for a fixed seed regardless of tiling, sample chunking,
 device count, wavefront queue order, or checkpoint/resume.
 
 **Spec v2 — why not jax.random:** the original spec (SURVEY A.10) chained
-``jax.random.fold_in``/``uniform`` over per-ray key pairs. Measured on TPU
-v5e that layout — (N, 2) key arrays and vmapped per-key uniform calls —
-cost 62% of the whole megakernel bounce loop (minor-dim-2 arrays are
-lane-padded 64x, and each draw re-runs the fold chain). This module
+``jax.random.fold_in``/``uniform`` over per-ray key pairs. On the
+accelerator this was designed for, that layout — (N, 2) key arrays and
+vmapped per-key uniform calls — dominated the megakernel bounce loop
+(minor-dim-2 arrays were lane-padded, and each draw re-runs the fold
+chain). This module
 implements threefry directly over scalar-SoA (N,) uint32 arrays: perfectly
 lane-tiled, fully fused by XLA, and implemented twice — jnp here, NumPy
 twins below — with bit-identical integer semantics, which makes the

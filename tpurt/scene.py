@@ -53,8 +53,7 @@ class Scene(NamedTuple):
     mat_emit: np.ndarray    # (M,3)
     # packed per-material row [type_bits, alb.rgb, emit.rgb, fuzz, ior,
     # 0..] (M,16) f32 — the bounce loop gathers material params in ONE
-    # N-row gather instead of five (measured ~2.3 ms/bounce of pure gather
-    # latency at 131k rays on TPU v5e)
+    # N-row gather instead of five
     mat_packed: np.ndarray  # (M,16) f32
     # sky gradient endpoints (A.7); zeros => black background
     sky_a: np.ndarray     # (3,) color at horizon (t=0)
@@ -71,9 +70,8 @@ class Scene(NamedTuple):
     pk_cut: Optional[np.ndarray]     # (8,2) i32 subtree cut (bvh.PacketBVH)
     # optional wide-fanout (8-ary) packet layout (bvh.PacketBVH8) —
     # built alongside the binary layout; the traversal uses it only when
-    # kernels.traverse.WIDE_ENABLE is set (measured SLOWER under the
-    # walk-gated round regime, benchmarks/probe_fanout.py — kept for the
-    # probe grid and the regimes where shorter walks pay)
+    # kernels.traverse.WIDE_ENABLE is set (it lost under the walk-gated
+    # round regime; kept for regimes where shorter walks pay)
     pk8_nodes: Optional[np.ndarray]  # (Mw,64) f32
     pk8_leaves: Optional[np.ndarray]  # (L, PACKET_LEAF_N*LEAF_F) f32
     pk8_cut: Optional[np.ndarray]    # (8,2) i32 subtree cut
@@ -245,13 +243,12 @@ class SceneBuilder:
                 pk_nodes = bvh_mod.pack_nodes_bf16(pk_nodes)
                 if pk_oct_nodes is not None:
                     pk_oct_nodes = bvh_mod.pack_nodes_bf16(pk_oct_nodes)
-            # The wide (8-ary) layout is a refuted production path
-            # (kernels.traverse.WIDE_ENABLE, benchmarks/probe_fanout.py):
-            # building it eagerly was a third full SAH recursion plus an
-            # (Mw,64) HBM upload per scene for arrays the traversal never
-            # reads (round-3 VERDICT weak #4). Built only when the flag
-            # asks for it; probes that flip WIDE_ENABLE set it BEFORE
-            # building their scene.
+            # The wide (8-ary) layout is off in production
+            # (kernels.traverse.WIDE_ENABLE): building it eagerly is a
+            # third full SAH recursion plus an (Mw,64) device upload per
+            # scene for arrays the traversal never reads. Built only when
+            # the flag asks for it; callers that flip WIDE_ENABLE set it
+            # BEFORE building their scene.
             from .kernels import traverse as _traverse
             if _traverse.WIDE_ENABLE:
                 pk8 = bvh_mod.build_packet8(tv0, tv1, tv2, tm)

@@ -24,7 +24,6 @@ import jax.numpy as jnp
 
 from . import geometry, linalg, materials, rng
 from .geometry import INF
-from .kernels import intersect as intersect_k
 from .kernels.traverse import (  # re-export
     PACKET_R, bvh_nearest_tri, packet_nearest_tri,
 )
@@ -32,12 +31,12 @@ from .scene import Scene
 
 RR_CLAMP_LO, RR_CLAMP_HI = 0.05, 0.95  # A.8
 # Bounce-stage ladder parameters (see the staged-compaction comment in
-# trace(); ladder generated by kernels.traverse.stage_caps; shape
-# re-measured round 3, probe_stagecaps.py — deeper ladders lose).
+# trace(); ladder generated by kernels.traverse.stage_caps; deeper
+# ladders lost on the previous accelerator, not yet measured on the H100).
 BOUNCE_STAGE_FLOOR = 4
 BOUNCE_STAGE_MAX = 4     # deepest bounce stage: n_pk // 2^4
-# Probe override (benchmarks/probe_bladder.py): an explicit caps list
-# for the bounce ladder — None selects the stage_caps() ladder above.
+# Override: an explicit caps list for the bounce ladder — None selects
+# the stage_caps() ladder above.
 BOUNCE_STAGE_CAPS = None
 
 
@@ -93,29 +92,6 @@ def intersect(scene: Scene, o, d, t_cap=None) -> Hit:
         mt = scene.tri_mat[tri_c]
         if scene.tri_src is not None:
             gid = jnp.where(ht, scene.tri_src[tri_c], -1)
-    elif (intersect_k.ENABLE
-          and scene.tri_v0.shape[0] <= intersect_k.MAX_TRIS
-          and scene.tri_shn is None
-          and jax.default_backend() == "tpu"):
-        # tri_shn guard: nearest_tri_small returns no winner gid, so a
-        # vn-carrying scene would silently flat-shade here while the
-        # oracle interpolates — route those through the brute path below.
-        # small scene, no BVH: the Mosaic VMEM-resident brute kernel
-        # (measured 1.6x over the fused jnp broadcast on v5e). Opt-in:
-        # its different float-op ordering perturbs bounce paths enough to
-        # forfeit the byte-identical TPU-vs-oracle PPM property (results
-        # remain RMSE-equivalent — it's Monte Carlo noise realignment).
-        rows = jnp.concatenate(
-            [
-                scene.tri_v0, scene.tri_e1, scene.tri_e2,
-                # material id as f32 VALUE — int bit-patterns are
-                # denormals and the TPU VPU flushes them to zero inside
-                # the kernel (see kernels/intersect.py module docstring)
-                scene.tri_mat.astype(jnp.float32)[:, None],
-            ],
-            axis=1,
-        )
-        tt, nt, mt, ht = intersect_k.nearest_tri_small(o, d, rows, t_best)
     else:
         tt, nt, mt, ht, tri = geometry.hit_triangles_brute(
             o, d, scene.tri_v0, scene.tri_e1, scene.tri_e2, scene.tri_mat,
@@ -145,7 +121,10 @@ def intersect(scene: Scene, o, d, t_cap=None) -> Hit:
         e1, e2 = row[:, 12:15], row[:, 15:18]
         nrm = jnp.cross(e1, e2)
         den = jnp.sum(nrm * nrm, axis=-1)
-        den = jnp.where(den > 0, den, 1.0)
+        # below the smallest normal f32 -> 1.0, whether or not the backend
+        # flushes denormals (XLA's CPU runtime does, its GPU backend does
+        # not); cpu_ref applies the same threshold
+        den = jnp.where(den >= jnp.finfo(jnp.float32).tiny, den, 1.0)
         u = jnp.sum(jnp.cross(tvec, e2) * nrm, axis=-1) / den
         v = jnp.sum(jnp.cross(e1, tvec) * nrm, axis=-1) / den
         u = jnp.clip(u, 0.0, 1.0)
@@ -183,8 +162,8 @@ def ray_coherence_key(scene: Scene, o, d, alive, variant: str = "octant"):
     """Sort key grouping rays into traversal-coherent packets.
 
     variant="octant": direction octant (3 bits, MAJOR) then Morton cell of
-    the origin within the BVH root bbox (21 bits). Measured
-    (benchmarks/probe_resort.py): LOSES on bounce rays — same-octant
+    the origin within the BVH root bbox (21 bits). It lost on bounce
+    rays on the previous accelerator — same-octant
     grouping pulls origins from across the whole batch's world footprint,
     widening the per-packet node-set union vs the tile order it replaced.
 
@@ -237,9 +216,7 @@ def trace(scene: Scene, o, d, keys, max_depth: int,
     numerator, SURVEY.md §5 "Metrics"). With want_state=True returns a
     third element: the SoA ray state ``(o, d, atten, alive, keys)`` at
     loop exit, full width in input order — the general bounce-span
-    handoff contract (used by span-resume callers; the cross-batch
-    tail-coalescing engine that motivated it was refuted and evicted in
-    round 5 — probe_tailcoalesce.py keeps the record).
+    handoff contract (used by span-resume callers).
 
     bounce0/atten0/rad0 resume a span: the bounce counter is ABSOLUTE
     (RNG draws and Russian roulette key off it), so splitting a path at
@@ -256,9 +233,9 @@ def trace(scene: Scene, o, d, keys, max_depth: int,
 
     resort: re-sort rays inside the loop each bounce by (liveness,
     direction octant) — all on-device — so traversal packets stay
-    direction-coherent after diffuse bounces. Off by default: measured on
-    this TPU, the per-bounce permute (row-gathers at ~8 ns/row over ~7
-    arrays) costs more than the traversal coherence wins back; kept as an
+    direction-coherent after diffuse bounces. Off by default: on the
+    previous accelerator the per-bounce permute (row gathers over ~7
+    arrays) cost more than the traversal coherence won back; kept as an
     option for scenes with deeper trees where the trade flips.
     """
     resort = resort and scene.pk_nodes is not None
@@ -394,12 +371,9 @@ def trace(scene: Scene, o, d, keys, max_depth: int,
         _, _, _, _, rad, _, _, _, nrays = final
         # rad is ALREADY in input order here: _run's unwind merges every
         # stage's sub-results back into the pre-compaction rows, so the
-        # top-level slot is the identity. The former
-        # `zeros.at[slot].set(rad)` was an identity scatter XLA cannot
-        # elide (slot is a runtime value) costing ~21 ms per 512k batch —
-        # ~40 ns/ROW, the TPU scatter serial floor; it was the fixed term
-        # probe_megadepth.py found at depth 1 (38.9 ms vs the 5.1 ms
-        # isolated bounce body). See benchmarks/probe_scatter.py.
+        # top-level slot is the identity, and no
+        # `zeros.at[slot].set(rad)` scatter (which XLA cannot elide:
+        # slot is a runtime value) is needed.
     else:
         _, _, _, _, rad, slot, _, _, nrays = jax.lax.while_loop(
             cond, body, init
